@@ -1,6 +1,6 @@
 """Command-line driver.
 
-TPU-native counterpart of the reference binary `pavle`
+Counterpart of the reference binary `pavle`
 (reference: main_test_cu.cu:32-180): each input file runs through the full
 pipeline with timing and optional golden verification.  Beyond the
 reference: real subcommands (encode / decode / roundtrip / bench / info),
@@ -16,9 +16,9 @@ Usage:
   python -m huffman_tpu info FILE.htz            # container header dump
   python -m huffman_tpu devices                  # device probe
 
---format auto (the default) picks the wide container on TPU (fast device
-decode) and dense elsewhere; --verify/--mesh force dense.  --mesh routes
-through parallel.pipeline.ShardedCodec over a device mesh.
+--mesh routes through parallel.pipeline.ShardedCodec over a device mesh.
+Containers of version 3 (the retired interleaved "wide" format) are read
+by the host-side spec decoder (container.py).
 """
 
 from __future__ import annotations
@@ -53,24 +53,6 @@ def _read(path: str) -> np.ndarray:
         return np.frombuffer(f.read(), dtype=np.uint8)
 
 
-def _resolve_format(fmt: str, verify: bool, mesh: str | None) -> str:
-    """'auto' picks the container by platform: wide on TPU (device decode
-    is ~1000x the dense XLA fallback — see api.decode NOTE), dense
-    elsewhere and for golden-exactness runs (--verify compares against
-    the CPU oracle's bit-concatenated stream).  --mesh routes through
-    ShardedCodec, which speaks both containers."""
-    if fmt != "auto":
-        return fmt
-    if verify:
-        return "dense"
-    try:
-        import jax
-        platform = jax.devices()[0].platform
-    except Exception:
-        platform = "cpu"
-    return "wide" if platform == "tpu" else "dense"
-
-
 def _mesh_codec(args, cfg):
     """--mesh N|auto -> a ShardedCodec over the first N (or all) devices.
 
@@ -88,22 +70,12 @@ def _mesh_codec(args, cfg):
 def cmd_encode(args) -> int:
     cfg = _cfg(args)
     rc = 0
-    fmt = _resolve_format(args.format, args.verify, args.mesh)
     sc = _mesh_codec(args, cfg)
     for path in args.files:
         data = _read(path)
         h = entropy_bits_per_byte(byte_histogram_host(data))
         with HostTimer() as t:
-            if fmt == "wide":
-                if sc is not None:
-                    enc = sc.encode_wide(data)
-                else:
-                    from . import wide
-                    enc = wide.encode_wide(data, cfg)
-            elif sc is not None:
-                enc = sc.encode(data)
-            else:
-                enc = api.encode(data, cfg)
+            enc = sc.encode(data) if sc is not None else api.encode(data, cfg)
         out = args.output or (path + ".htz")
         size = container.dump(enc, out,
                               checksum=not args.no_checksum)
@@ -111,17 +83,11 @@ def cmd_encode(args) -> int:
               f"(ratio {size / max(data.size, 1):.4f}) in {t.ms:.1f} ms "
               f"[{gb_per_s(data.size / 2**20, t.ms):.3f} GB/s inc. compile]")
         if args.verify:
-            if fmt == "wide":
-                from . import wide
-                ok = bool(np.array_equal(wide.decode_wide(enc), data))
-                print(f"  verify roundtrip: {'PASS' if ok else 'FAIL'}")
-                rc |= 0 if ok else 1
-            else:
-                from .verify import verify_encoded
-                res = verify_encoded(enc, data)
-                print(f"  verify vs golden: "
-                      f"{'PASS' if res else 'FAIL'} — {res.detail}")
-                rc |= 0 if res else 1
+            from .verify import verify_encoded
+            res = verify_encoded(enc, data)
+            print(f"  verify vs golden: "
+                  f"{'PASS' if res else 'FAIL'} — {res.detail}")
+            rc |= 0 if res else 1
     return rc
 
 
@@ -136,21 +102,14 @@ def cmd_decode(args) -> int:
     for path in args.files:
         enc = container.load(path)
         with HostTimer() as t:
-            from .wide import WideEncoded
-            if getattr(args, "range", None):
+            if isinstance(enc, container.WideEncoded):
+                data = container.decode_wide(enc)
+                if getattr(args, "range", None):
+                    start, stop = _parse_range(args.range, enc.n_bytes)
+                    data = data[start:stop]
+            elif getattr(args, "range", None):
                 start, stop = _parse_range(args.range, enc.n_bytes)
-                if isinstance(enc, WideEncoded):
-                    from . import wide
-                    data = wide.decode_wide_range(enc, start, stop)
-                else:
-                    data = api.decode_range(enc, start, stop)
-            elif isinstance(enc, WideEncoded):
-                if getattr(args, "mesh", None):
-                    sc = sc or _mesh_codec(args, enc.config)
-                    data = sc.decode_wide(enc)
-                else:
-                    from . import wide
-                    data = wide.decode_wide(enc)
+                data = api.decode_range(enc, start, stop)
             elif getattr(args, "mesh", None):
                 sc = sc or _mesh_codec(args, enc.config)
                 data = sc.decode(enc)
@@ -182,39 +141,29 @@ def cmd_roundtrip(args) -> int:
 
 def cmd_bench(args) -> int:
     import jax
-    import jax.numpy as jnp
     cfg = _cfg(args)
     logger = StatsLogger(args.log_dir)
+    dev = jax.devices()[0]
     rc = 0
     for path in args.files:
         data = _read(path)
         mb = data.size / 2**20
         cb = api.build_codebook(data, cfg)
-        blocks, n = api._as_blocks(data, cfg)
-        dev_blocks = jnp.asarray(blocks)
-        codes, lens = jnp.asarray(cb.codes), jnp.asarray(cb.lengths)
-        valid = jnp.asarray(api.valid_per_block(n, blocks.shape[0],
-                                                cfg.block_bytes))
 
-        # Time the SAME pipeline api.encode dispatches to (Mosaic kernels
-        # on TPU, XLA elsewhere) — not unconditionally the XLA path.
+        # End-to-end wall of the path `encode` runs (host bytes in,
+        # Encoded out), sharded under --mesh.
         sc = _mesh_codec(args, cfg)
         if sc is not None:
-            # sharded end-to-end wall (incl. the host plan sync), the
-            # product path `encode --mesh` runs
             bench_fn = lambda: sc.encode(data, codebook=cb)  # noqa: E731
-        elif api._pallas_ok(cfg):
-            bench_fn = lambda: api.encode_pipeline_pallas(  # noqa: E731
-                dev_blocks, codes, lens, valid, cfg.capacity_words)
         else:
-            bench_fn = lambda: api.encode_pipeline(  # noqa: E731
-                dev_blocks, codes, lens, valid, cfg.capacity_words)
+            bench_fn = lambda: api.encode(data, cfg, codebook=cb)  # noqa: E731
         enc_stats = time_fn(bench_fn, iters=args.iters)
         rec = logger.log_rate("encode", mb, enc_stats["median_ms"],
                               file=path, bytes=data.size,
-                              iters=args.iters)
+                              iters=args.iters, device=dev.device_kind)
         print(f"{path}: encode {enc_stats['median_ms']:.3f} ms median "
-              f"({args.iters} iters) = {rec['gbps']:.3f} GB/s")
+              f"({args.iters} iters) = {rec['gbps']:.3f} GB/s "
+              f"on {dev.device_kind}")
 
         enc = api.encode(data, cfg, codebook=cb)
         if args.verify:
@@ -229,8 +178,7 @@ def cmd_info(args) -> int:
     for path in args.files:
         enc = container.load(path)
         used = int((enc.codebook.lengths > 0).sum())
-        from .wide import WideEncoded
-        if isinstance(enc, WideEncoded):
+        if isinstance(enc, container.WideEncoded):
             print(f"{path}: v2 (wide), {enc.n_bytes} B original, "
                   f"{enc.payload_words.size} payload words, "
                   f"{len(enc.tile_words)} tiles, {used} symbols, "
@@ -257,7 +205,7 @@ def main(argv=None) -> int:
     def add_mesh(sp):
         sp.add_argument("--mesh", default=None, metavar="N|auto",
                         help="shard over the first N (or all) devices via "
-                        "ShardedCodec (dense and wide formats)")
+                        "ShardedCodec")
 
     def add_common(sp, output=False):
         sp.add_argument("files", nargs="+")
@@ -276,12 +224,6 @@ def main(argv=None) -> int:
     sp.add_argument("--no-checksum", action="store_true",
                     help="skip the container payload CRC-32 (host-side "
                          "single-thread pass; readers accept both forms)")
-    sp.add_argument("--format", choices=("auto", "dense", "wide"),
-                    default="auto",
-                    help="dense: bit-concatenated stream (golden-exact); "
-                    "wide: interleaved format for fast vector decode; "
-                    "auto (default): wide on TPU, dense elsewhere and "
-                    "for --verify/--mesh runs")
     sp.set_defaults(fn=cmd_encode)
 
     sp = sub.add_parser("decode", help="decode .htz containers")
@@ -290,7 +232,7 @@ def main(argv=None) -> int:
     add_mesh(sp)
     sp.add_argument("--range", default=None, metavar="START:STOP",
                     help="decode only bytes [START, STOP): random "
-                    "access via per-block/per-tile container offsets")
+                    "access via the per-block container offsets")
     sp.set_defaults(fn=cmd_decode)
 
     sp = sub.add_parser("roundtrip", help="encode+decode+verify, no output")

@@ -146,38 +146,6 @@ def canonical_codes(lengths: np.ndarray) -> np.ndarray:
     return codes
 
 
-def _window_overflow_fracs(freqs: np.ndarray,
-                           lengths: np.ndarray
-                           ) -> tuple[float, float, float]:
-    """(P[1 KiB block has a >32-bit 4B window], same for 8B windows,
-    P[block has a >64-bit 16B window]).
-
-    Exact under byte-independence: the per-byte code-length pmf is
-    convolved to the 4-, 8- and 16-byte window sums (aligned windows,
-    which is what the merge tree's items are); a block has 256 (128, 64)
-    such windows.  Used to pick how far the speculative tree may narrow
-    — see ops/pallas/encode.encode_tree_chunks halve_to_chunks (4B/8B
-    windows) and compact16 (16B windows at 2-word slots).
-    """
-    f = np.asarray(freqs, dtype=np.float64)
-    tot = f.sum()
-    if tot <= 0:
-        return 0.0, 0.0, 0.0
-    pmf = np.zeros(int(lengths.max(initial=0)) + 1)
-    np.add.at(pmf, np.asarray(lengths, np.int64), f / tot)
-    w2 = np.convolve(pmf, pmf)
-    w4 = np.convolve(w2, w2)
-    p4 = float(w4[33:].sum())
-    w8 = np.convolve(w4, w4)
-    p8 = float(w8[33:].sum())
-    w16 = np.convolve(w8, w8)
-    p16 = float(w16[65:].sum())
-    # the 1-chunk tree flags on BOTH its L2 (4B) and L3 (8B) halvings
-    return (float(1 - (1 - p4) ** 256),
-            float(1 - (1 - p4) ** 256 * (1 - p8) ** 128),
-            float(1 - (1 - p16) ** 64))
-
-
 @dataclasses.dataclass(frozen=True)
 class Codebook:
     """A canonical Huffman codebook over the byte alphabet.
@@ -191,62 +159,13 @@ class Codebook:
     codes: np.ndarray      # (256,) uint32, right-aligned values
     lengths: np.ndarray    # (256,) int32
     max_len: int
-    # Expected bits/byte on the histogram this book was built from (None
-    # when unknown, e.g. deserialized from a container).  Drives the
-    # speculative-capacity choice in api.encode (config.spec_bits_per_byte).
-    est_bpb: float | None = None
-    # Expected fraction of 1 KiB blocks containing a 4-byte (8-byte)
-    # window whose codes exceed 32 bits, from the training histogram
-    # under an independence assumption.  Drives the speculative TREE
-    # width (api encode: a 2-chunk tree loses bits exactly at >32-bit
-    # 4-byte windows, a 1-chunk tree also at >32-bit 8-byte windows);
-    # flagged blocks are re-encoded, so this is a cost estimate, not a
-    # correctness input.  None when unknown.
-    est_w4_frac: float | None = None
-    est_w8_frac: float | None = None
-    # Same, for 16-byte windows exceeding 64 bits — the compact16
-    # speculative density level (4 bits/byte in 2-word slots).
-    est_w16_frac: float | None = None
 
     @staticmethod
     def from_frequencies(freqs: np.ndarray, max_code_len: int = 16) -> "Codebook":
         lengths = huffman_code_lengths(freqs)
         if lengths.max(initial=0) > max_code_len:
             lengths = package_merge_lengths(freqs, max_code_len)
-        codes = canonical_codes(lengths)
-        cb = Codebook(codes=codes, lengths=lengths,
-                      max_len=int(lengths.max(initial=0)))
-        w4, w8, w16 = _window_overflow_fracs(freqs, lengths)
-        return dataclasses.replace(
-            cb, est_bpb=cb.expected_bits_per_byte(freqs),
-            est_w4_frac=w4, est_w8_frac=w8, est_w16_frac=w16)
-
-    @staticmethod
-    def from_frequencies_auto(freqs: np.ndarray, max_code_len: int = 16,
-                              narrow_tol: float = 0.01) -> "Codebook":
-        """Codebook with an automatic speed/size cap choice.
-
-        The Mosaic encode tree is specialized on a static code-length
-        bound, and a bound of <= 8 (or <= 4) runs a 2x (4x) narrower —
-        and correspondingly faster — merge tree (ops/pallas/encode.py
-        encode_tree_chunks).  When a cap-8 (or cap-4) package-merge
-        codebook costs at most `narrow_tol` relative expected size over
-        the max_code_len one, prefer it: on skewed streams like the
-        reference's 32-symbol fixture (data/test1024_H2.2...in) the cost
-        is ~0.1% for ~2x encode throughput.  narrow_tol <= 0 disables.
-        """
-        full = Codebook.from_frequencies(freqs, max_code_len)
-        if narrow_tol <= 0:
-            return full
-        base = full.expected_bits_per_byte(freqs)
-        n_live = int(np.count_nonzero(freqs))
-        for cap in (4, 8):
-            if cap >= full.max_len or n_live > (1 << cap):
-                continue
-            narrow = Codebook.from_frequencies(freqs, cap)
-            if narrow.expected_bits_per_byte(freqs) <= base * (1 + narrow_tol):
-                return narrow
-        return full
+        return Codebook.from_lengths(lengths)
 
     @staticmethod
     def from_lengths(lengths: np.ndarray) -> "Codebook":
@@ -294,46 +213,3 @@ class Codebook:
             syms[base: base + span] = s
             lens[base: base + span] = L
         return syms, lens
-
-    def canonical_decode_arrays(self):
-        """(lim_b, off, perm, min_len): arithmetic canonical decoding.
-
-        Canonical codes are monotone in left-aligned value, so the code
-        LENGTH of a 32-bit MSB-aligned peek v is determined by pure
-        compares — no length table at all:
-
-            len = min_len + sum_{L} [v > lim_b[L]]       (L = 1..14)
-            sym = perm[(v >> (32 - len)) + off[len]]
-
-        lim_b[L] is the largest left-aligned 32-bit value whose code is
-        <= L bits, XOR-0x80000000-biased into int32 so the TPU kernel's
-        signed compares order uint32 values correctly; entries outside
-        [min_len, max_len) are int32-max (indicator 0).  off[L] =
-        (# codes shorter than L) - first_code[L].  perm holds the symbols
-        in canonical order, zero-padded to a multiple of 128.
-        """
-        lens = self.lengths.astype(np.int64)
-        counts = np.bincount(lens[lens > 0], minlength=17)[:17]
-        order = np.lexsort((np.arange(NUM_SYMBOLS), lens))
-        live = order[lens[order] > 0]
-        n_live = int(live.size)
-        min_len = int(lens[live[0]]) if n_live else 1
-        max_len = int(lens.max(initial=0))
-        first = np.zeros(17, np.int64)     # canonical first code per length
-        for L in range(1, 17):
-            first[L] = (first[L - 1] + counts[L - 1]) << 1
-        lim_b = np.full(16, np.int32(0x7FFFFFFF), np.int32)
-        off = np.zeros(16, np.int32)
-        cum = 0
-        for L in range(1, max_len + 1):
-            off[L] = np.int32(cum - first[L])
-            cum += int(counts[L])
-            if min_len <= L < max_len:
-                # largest left-aligned value with code length <= L
-                bound = ((first[L] + counts[L]) << (32 - L)) - 1
-                lim_b[L] = np.int32(np.uint32(bound) ^ np.uint32(1 << 31))
-        pad = -(-max(n_live, 1) // 128) * 128
-        perm = np.zeros(pad, np.int32)
-        perm[:n_live] = live
-        return lim_b, off, perm, min_len
-

@@ -1,6 +1,6 @@
-"""Runtime configuration for the TPU Huffman codec.
+"""Runtime configuration for the Huffman codec.
 
-TPU-native replacement for the reference's compile-time parameter header
+Replaces the reference's compile-time parameter header
 (reference: parameters.h:1-26) and file-derived geometry init
 (reference: load_data.h:8-23).  Where the reference bakes NUM_SYMBOLS / DPT /
 TESTING / CACHECWLUT into the binary and hardcodes 256 threads per block
@@ -45,39 +45,20 @@ class CodecConfig:
         reference relies on data-dependent luck to stay <=32
         (cpuencode.cpp:10); we enforce the cap with package-merge
         (length-limited Huffman) so the table-driven decoder always works
-        with a single 2**max_code_len-entry lookup.  Default 12: the
-        Pallas decoder's in-VMEM table scan wants <=12 (ops/pallas/
-        decode.py), and 12-bit-limited codes cost <<1% compression on
-        byte alphabets; the XLA paths accept up to 24.
+        with a single 2**max_code_len-entry lookup.  Default 12: it keeps
+        the decoder's table at 4096 entries, and 12-bit-limited codes cost
+        <<1% compression on byte alphabets; up to 24 is accepted.
       capacity_bits_per_byte: per-block encoded-output capacity, in bits per
         input byte.  The reference assumes compression ratio <= 1, i.e. 8
         bits/byte (vlc_kernel_sm64huff.cu:30-32); we keep that default but
         make it a knob and *check* for overflow instead of corrupting memory.
-      check_overflow: verify on-host that no block overflowed its capacity
-        (costs one scalar device->host sync per encode call).
       table_bits: decoder lookup-table width.  Must be >= max_code_len.
-      narrow_tol: relative compressed-size tolerance for automatically
-        preferring a narrower (cap-4/cap-8) codebook, which runs the
-        Mosaic encode tree up to ~2x faster (Codebook.from_frequencies_auto).
-        0 disables; max_code_len stays the hard cap either way.
-      spec_bits_per_byte: speculative per-block capacity (bits per input
-        byte) for the Mosaic encode path.  When the codebook's expected
-        rate on the stream's own histogram is below this minus a safety
-        margin, the kernels run at this narrower capacity first — the
-        block encoder skips dead top-lane work and the pack kernel stages
-        half the rows — and re-encode at the guaranteed capacity only if
-        some block actually overflowed it (exact per-block bit counts are
-        computed regardless of capacity, so the retry is detected, not
-        guessed).  0 disables speculation.
     """
 
     block_bytes: int = 1024
     max_code_len: int = 12
     capacity_bits_per_byte: int = 8
-    check_overflow: bool = True
     table_bits: int | None = None
-    narrow_tol: float = 0.01
-    spec_bits_per_byte: int = 4
 
     def __post_init__(self):
         if self.block_bytes % WORD_BYTES != 0:

@@ -26,15 +26,16 @@ Layout (all integers little-endian):
   ...     4     CRC-32 of the payload bytes (u32, when flags bit 0 set;
                 writers set it by default, readers accept its absence)
 
-Version 3 (the WIDE interleaved format v2, golden/wide_codec.py): the
-same header with block_bytes := the tile size, total_bits := payload
-words * 32 and num_blocks := the tile count; the per-block table holds
-per-TILE payload PLANE word counts (u32 each), followed by the per-tile
-per-round pull-index bases (ROUNDS u16 per tile — plane words per tile
-are < 2^16 by construction), and the payload is the word-aligned
-concatenation of tile payloads, each tile stored as plane P0 then plane
-P1 (words little-endian: they are schedule-ordered machine words, not a
-bitstream).  Version 2 (wide v1) is retired.
+Version 3 (the retired interleaved "wide" format, spec and reference
+codec in golden/wide_codec.py) is read-only: files written by earlier
+releases load and decode on the host through that spec decoder
+(decode_wide).  Nothing writes it any more.  Its layout: the same header
+with block_bytes := the tile size, total_bits := payload words * 32 and
+num_blocks := the tile count; the per-block table holds per-TILE payload
+PLANE word counts (u32 each), followed by the per-tile per-round
+pull-index bases (ROUNDS u16 per tile), and the payload is the
+word-aligned concatenation of tile payloads, each tile stored as plane
+P0 then plane P1 (words little-endian).  Version 2 is retired entirely.
 """
 
 from __future__ import annotations
@@ -132,39 +133,44 @@ def loads(blob: bytes) -> Encoded:
 WIDE_VERSION = 3
 
 
-def dumps_wide(enc, checksum: bool = True) -> bytes:
-    """Serialize a wide.WideEncoded stream (container version 3)."""
-    from .golden.wide_codec import ROUNDS, TILE_BYTES
-    header = _HEADER.pack(MAGIC, WIDE_VERSION,
-                          FLAG_CRC32 if checksum else 0, enc.n_bytes,
-                          TILE_BYTES, enc.config.max_code_len,
-                          int(enc.payload_words.size) * 32,
-                          len(enc.tile_words))
-    lens = np.asarray(enc.codebook.lengths, dtype=np.uint8).tobytes()
-    counts = np.asarray(enc.tile_words, dtype=np.uint32).tobytes()
-    bases = np.asarray(enc.bases, dtype=np.uint16)
-    if bases.shape != (len(enc.tile_words), ROUNDS):
-        raise ValueError("bases shape mismatch")
-    payload = np.ascontiguousarray(enc.payload_words,
-                                   dtype=np.uint32).tobytes()
-    if not checksum:
-        return header + lens + counts + bases.tobytes() + payload
-    import zlib
-    crc = struct.pack("<I", zlib.crc32(payload) & 0xFFFFFFFF)
-    return header + lens + counts + bases.tobytes() + payload + crc
+@dataclasses.dataclass(frozen=True)
+class WideEncoded:
+    """A version-3 (wide) container's contents."""
+    payload_words: np.ndarray     # per tile: P0 then P1, concatenated
+    tile_words: np.ndarray        # (NT,) int32 PLANE words per tile
+    bases: np.ndarray             # (NT, ROUNDS) int32 per-round pull bases
+    codebook: Codebook
+    n_bytes: int
+    config: CodecConfig
 
 
-def loads_wide(blob: bytes):
-    """Deserialize container version 3 to wide.WideEncoded."""
-    from .wide import WideEncoded
+def decode_wide(enc: WideEncoded) -> np.ndarray:
+    """Decode a version-3 container on the host with the format's NumPy
+    spec decoder (golden/wide_codec.decode).  A reader for files written
+    by earlier releases, not a device path."""
+    from .golden.wide_codec import decode
+    tiles = []
+    start = 0
+    for tw, bases in zip(enc.tile_words.astype(np.int64), enc.bases):
+        p0 = enc.payload_words[start: start + tw]
+        p1 = enc.payload_words[start + tw: start + 2 * tw]
+        tiles.append((p0, p1, bases))
+        start += 2 * tw
+    syms, lens = enc.codebook.decode_table()
+    mcl = int(enc.codebook.lengths.max(initial=1)) or 1
+    return decode(tiles, enc.n_bytes, syms, lens,
+                  max(int(enc.codebook.max_len), 1), mcl)
+
+
+def loads_wide(blob: bytes) -> WideEncoded:
+    """Deserialize container version 3."""
     from .golden.wide_codec import MAXLEN, ROUNDS, TILE_BYTES
     magic, ver, flags, n_bytes, tile, max_code_len, bits, nt = \
         _HEADER.unpack_from(blob, 0)
     if magic != MAGIC or ver != WIDE_VERSION:
         raise ValueError(f"not a version-{WIDE_VERSION} (wide) HTZ container")
-    # The stored tile size and code-length cap gate the decode kernels:
-    # a different TILE_BYTES (future format rev) or an oversized
-    # max_code_len would silently misdecode the payload.
+    # The stored tile size and code-length cap are format constants: a
+    # different value would silently misdecode the payload.
     if tile != TILE_BYTES:
         raise ValueError(
             f"wide container tile size {tile} != supported {TILE_BYTES}")
@@ -199,10 +205,8 @@ def container_version(blob: bytes) -> int:
     return _HEADER.unpack_from(blob, 0)[1]
 
 
-def dump(enc, path: str, checksum: bool = True) -> int:
-    from .wide import WideEncoded
-    blob = (dumps_wide(enc, checksum) if isinstance(enc, WideEncoded)
-            else dumps(enc, checksum))
+def dump(enc: Encoded, path: str, checksum: bool = True) -> int:
+    blob = dumps(enc, checksum)
     with open(path, "wb") as f:
         f.write(blob)
     return len(blob)

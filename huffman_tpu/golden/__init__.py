@@ -4,14 +4,19 @@ Fills the role of the reference's `cpu_vlc_encode` golden encoder
 (reference: cpuencode.cpp:13-46, cpuencode.h:4-7) — the bit-exactness oracle
 the device pipeline is verified against (reference: main_test_cu.cu:122,171)
 — plus the decoder the reference lacks.  The shared library is built
-on demand with g++ (no pybind11 in this environment; plain C ABI + ctypes).
+at first use with g++ (plain C ABI + ctypes) into _build/, a directory the
+repository does not track, under a name keyed by the source's hash: a
+fresh checkout builds its own, and an edited source never loads a stale
+library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -21,15 +26,33 @@ from . import numpy_codec
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "cpu_codec.cpp")
-_LIB = os.path.join(_HERE, "_libhuffgolden.so")
+_BUILD = os.path.join(_HERE, "_build")
+# Portable flags (no -march=native): the library may be built on one
+# machine and loaded on another that shares the checkout.
+_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 _lock = threading.Lock()
 _lib = None
 
 
-def _build() -> None:
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           "-o", _LIB, _SRC]
-    subprocess.run(cmd, check=True, capture_output=True)
+def _lib_path() -> str:
+    with open(_SRC, "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(_FLAGS).encode())
+    return os.path.join(_BUILD, f"libhuffgolden-{key.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> None:
+    """Compile to a temporary name, then rename: concurrent builders
+    (test workers) never load a half-written library."""
+    os.makedirs(_BUILD, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC], check=True,
+                       capture_output=True)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def load_library() -> ctypes.CDLL:
@@ -38,10 +61,10 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            _build()
-        lib = ctypes.CDLL(_LIB)
+        path = _lib_path()
+        if not os.path.exists(path):
+            _build(path)
+        lib = ctypes.CDLL(path)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.huff_encode_bytes.restype = ctypes.c_uint64
         lib.huff_encode_bytes.argtypes = [

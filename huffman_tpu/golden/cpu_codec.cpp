@@ -1,4 +1,4 @@
-// Golden CPU Huffman codec (bit-exactness oracle for the TPU pipeline).
+// Golden CPU Huffman codec (bit-exactness oracle for the device pipeline).
 //
 // Native C++ replacement for the reference's sequential golden encoder
 // `cpu_vlc_encode` (reference: cpuencode.cpp:13-46), extended with the

@@ -12,8 +12,8 @@ depends on all previous lengths), so the kernel runs `block_bytes` dependent
 steps — but every step is vectorized across ALL blocks: one lane per block,
 with per-lane (word, bit) cursors into the dense stream and gathers into the
 2**table_bits single-level decode table.  This is the standard
-"self-synchronization-free" layout used by GPU Huffman decoders, adapted to
-the TPU's preference for wide SIMD steps over scalar threads.
+"self-synchronization-free" layout used by GPU Huffman decoders, written
+as wide vector steps for XLA.
 """
 
 from __future__ import annotations

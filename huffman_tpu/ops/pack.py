@@ -1,6 +1,6 @@
 """Bit-granular pack: stitch per-block bitstreams into one dense stream.
 
-TPU-native replacement for the reference pack kernel (reference:
+Plain XLA counterpart of the reference pack kernel (reference:
 pack_kernels.cu:19-52), which assigns one CUDA thread per encoded block and
 resolves the shared head/tail words between neighboring blocks with
 atomicOr (pack_kernels.cu:34,45-51).  Here every block's contribution is a

@@ -2,12 +2,13 @@
 
 The reference's entire "distributed" layer is picking one GPU
 (reference: cuda_helpers.h:11-38); its communication backend row in
-SURVEY.md section 2 is empty.  This module is the TPU-native replacement:
-a 1-D jax.sharding.Mesh over all chips (the block axis is the only
+SURVEY.md section 2 is empty.  This module is its replacement:
+a 1-D jax.sharding.Mesh over all devices (the block axis is the only
 parallel axis of this workload — data parallelism over independent blocks,
 SURVEY.md section 2 parallelism table), with jax.distributed for multi-host
-pod slices.  TP/PP/EP are N/A for a codec (same table); the histogram
-psum, codebook broadcast and offset-base exchange all ride this one mesh.
+clusters.  TP/PP/EP are N/A for a codec (same table); the per-shard
+histograms, the codebook broadcast and the bit-count fetch all ride this
+one mesh.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def fetch(x) -> np.ndarray:
 
     np.asarray on a jax.Array spanning non-addressable devices raises;
     on a multi-host mesh the value is re-replicated through the runtime
-    (one collective over ICI/DCN) so every process gets the full array,
+    (one collective across processes) so every process gets the full array,
     which is what the host-side orchestration (plans, container headers)
     needs.  Single-process arrays take the plain np.asarray path."""
     if isinstance(x, jax.Array) and not x.is_fully_addressable:
@@ -72,12 +73,12 @@ def put_global(host_arr, sharding: NamedSharding) -> jax.Array:
 def init_multihost(coordinator_address: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None) -> None:
-    """Initialize jax.distributed for a multi-host pod slice.
+    """Initialize jax.distributed for a multi-host cluster.
 
-    On Cloud TPU the arguments are auto-detected; pass them explicitly for
-    manual clusters.  Collectives then ride ICI within a slice and DCN
-    across hosts through the same mesh code — no transport code here
-    (SURVEY.md section 5, distributed-communication row).
+    Pass the coordinator address, process count and process id
+    explicitly (nothing here discovers a cluster).  Collectives then run
+    across all processes through the same mesh code — no transport code
+    here (SURVEY.md section 5, distributed-communication row).
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

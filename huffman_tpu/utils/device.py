@@ -1,6 +1,6 @@
 """Device probing and error surfaces.
 
-TPU analogue of the reference's CUDA init/guard layer: InitCUDA's device
+Counterpart of the reference's CUDA init/guard layer: InitCUDA's device
 enumeration and pick (reference: cuda_helpers.h:11-38) and the
 CUDA_SAFE_CALL / CUT_CHECK_ERROR exit-on-error macros
 (reference: cutil.h:781-838).  JAX surfaces device errors as exceptions

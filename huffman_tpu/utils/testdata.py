@@ -68,6 +68,30 @@ def skewed(n: int, num_symbols: int = 32, decay: float = 0.75,
     return rng.choice(num_symbols, size=n, p=p).astype(np.uint8)
 
 
+def log2_skewed_device(n: int, seed: int = 0, chunk: int = 1 << 28):
+    """(n,) uint8 device array: floor(log2(u)) of uniform 30-bit u >= 1.
+
+    Symbol 29-k has probability 2**-(k+1), so H is about 2 bits/byte over
+    30 symbols — the regime of the reference's shipped fixture (32
+    distinct bytes, H=2.21).  Made on the device from `seed`, chunk by
+    chunk, so a GiB-size stream costs no host generation pass.
+    """
+    import jax
+    import jax.numpy as jnp
+
+    size = max(1, min(chunk, n))
+
+    @jax.jit
+    def gen(key):
+        bits = jax.random.bits(key, (size,), jnp.uint32)
+        u = (bits >> 2) | jnp.uint32(1)
+        return (31 - jax.lax.clz(u)).astype(jnp.uint8)
+
+    key = jax.random.PRNGKey(seed)
+    parts = [gen(jax.random.fold_in(key, i)) for i in range(-(-n // size))]
+    return jnp.concatenate(parts)[:n] if len(parts) > 1 else parts[0][:n]
+
+
 def entropy_fixture(n: int = 1 << 20, target_entropy: float = 2.206587175259,
                     num_symbols: int = 32, seed: int = 1024) -> np.ndarray:
     """Fixture with the same profile as the reference's shipped sample.

@@ -1,6 +1,6 @@
 """Timing and profiling harness.
 
-TPU equivalent of the reference's CUDA-event timing loops
+Counterpart of the reference's CUDA-event timing loops
 (reference: main_test_cu.cu:117-156 — 10-run kernel average with
 cudaEventRecord — and hist.cu:92-117) and gettimeofday CPU timing
 (main_test_cu.cu:32-36): async dispatch is fenced with

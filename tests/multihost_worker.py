@@ -1,9 +1,9 @@
 """Worker process for the 2-host distributed test (test_multihost.py).
 
 Each process owns 2 virtual CPU devices; jax.distributed stitches them
-into one 4-device global mesh — the same code path a real multi-host TPU
-pod slice uses (parallel/mesh.init_multihost), with DCN collectives
-replaced by local gloo.  Usage:
+into one 4-device global mesh — the same code path a multi-host cluster
+uses (parallel/mesh.init_multihost), with the collectives run by local
+gloo.  Usage:
     python multihost_worker.py <process_id> <num_processes> <port>
 Prints MULTIHOST-OK on success (every process must).
 """
@@ -31,101 +31,44 @@ init_multihost(coordinator_address=f"localhost:{port}",
                num_processes=nprocs, process_id=pid)
 
 import numpy as np  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-from jax.experimental import multihost_utils  # noqa: E402
-from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
+from unittest import mock  # noqa: E402
 
-from huffman_tpu import golden  # noqa: E402
+from huffman_tpu import api, backend, container, golden  # noqa: E402
 from huffman_tpu.codebook import Codebook  # noqa: E402
 from huffman_tpu.config import CodecConfig  # noqa: E402
-from huffman_tpu.golden.numpy_codec import packed_bytes_to_words  # noqa: E402
-from huffman_tpu.parallel.mesh import DATA_AXIS, make_mesh  # noqa: E402
-from huffman_tpu.parallel.pipeline import (assemble_dense,  # noqa: E402
-                                           encode_phase1, pack_phase2)
+from huffman_tpu.parallel.mesh import make_mesh  # noqa: E402
+from huffman_tpu.parallel.pipeline import ShardedCodec  # noqa: E402
 from huffman_tpu.utils import testdata  # noqa: E402
 
 assert jax.process_count() == nprocs, jax.process_count()
 ndev = len(jax.devices())
 assert ndev == 2 * nprocs, ndev
 
+# ---- the XLA path: histogram, bit counts, encode, assembly, decode ----
 cfg = CodecConfig(block_bytes=64)
-mesh = make_mesh()  # all 4 global devices
+codec = ShardedCodec(make_mesh(), cfg)   # all 4 global devices
 data = testdata.skewed(ndev * 3 * cfg.block_bytes + 29, num_symbols=16,
                        seed=7)
-cb = Codebook.from_data(data, cfg.max_code_len)
-
-# global (blocks, valid), padded to a mesh multiple, sharded on block axis
-from huffman_tpu.api import valid_per_block  # noqa: E402
-
-nb = -(-len(data) // cfg.block_bytes)
-nb = -(-nb // ndev) * ndev
-padded = np.zeros(nb * cfg.block_bytes, np.uint8)
-padded[: len(data)] = data
-blocks = padded.reshape(nb, cfg.block_bytes)
-valid = valid_per_block(len(data), nb, cfg.block_bytes)
-
-bs = NamedSharding(mesh, P(DATA_AXIS))
-nb_loc = nb // nprocs
-d_blocks = jax.make_array_from_process_local_data(
-    bs, blocks[pid * nb_loc:(pid + 1) * nb_loc], blocks.shape)
-d_valid = jax.make_array_from_process_local_data(
-    bs, valid[pid * nb_loc:(pid + 1) * nb_loc], valid.shape)
-
-p1 = encode_phase1(mesh, cfg.capacity_words, use_pallas=False,
-                   max_code_len=cfg.max_code_len)
-streams, bits_dev, shard_word, shard_shift, hist = p1(
-    d_blocks, d_valid, jnp.asarray(cb.codes), jnp.asarray(cb.lengths))
-
-p2 = pack_phase2(mesh, 1, 1, streams.shape[1], use_pallas=False)
-f_dummy = jax.make_array_from_process_local_data(    # unused by XLA body
-    bs, np.zeros((2, 1), np.int32), (ndev, 1))
-shard_streams, used = p2(streams, bits_dev, shard_shift, f_dummy)
-
-# gather everything to every process and verify on all of them
-bits = multihost_utils.process_allgather(bits_dev, tiled=True)
-g_streams = multihost_utils.process_allgather(shard_streams, tiled=True)
-g_word = multihost_utils.process_allgather(shard_word, tiled=True)
-g_used = multihost_utils.process_allgather(used, tiled=True)
-g_hist = np.asarray(hist.addressable_shards[0].data
-                    if hasattr(hist, "addressable_shards") else hist)
-
-assert int(g_hist.sum()) == len(data), "psum histogram lost bytes"
-total_bits = int(np.asarray(bits).astype(np.int64).sum())
-stream = assemble_dense(np.asarray(g_streams), np.asarray(g_word),
-                        np.asarray(g_used), -(-total_bits // 32))
-ref_bytes, ref_bits = golden.encode(data, cb)
-assert total_bits == ref_bits, (total_bits, ref_bits)
-assert np.array_equal(stream, packed_bytes_to_words(ref_bytes)), \
+enc = codec.encode(data)
+ref_bytes, ref_bits = golden.encode(data, enc.codebook)
+assert enc.total_bits == ref_bits, (enc.total_bits, ref_bits)
+assert np.array_equal(enc.stream_bytes, ref_bytes), \
     "multi-host stream not bit-exact vs golden"
+assert np.array_equal(codec.decode(enc), data), "multi-host decode"
 
-# ---- product dense path (VERDICT r4 item 5): ShardedCodec.encode with
-# the Mosaic kernels under the Pallas interpreter, the same speculative
-# schedule + patch overlay + host-planned pack users run on TPU — here
-# with every host fetch/upload crossing the 2-process boundary.
-from huffman_tpu.parallel.pipeline import ShardedCodec  # noqa: E402
-
-codec = ShardedCodec(mesh, CodecConfig())
+# ---- the GPU kernel (under the Pallas interpreter) in every shard ----
+codec2 = ShardedCodec(make_mesh(), CodecConfig())
 data2 = testdata.skewed(ndev * 6 * 1024 + 333, num_symbols=32, seed=8)
 cb2 = Codebook.from_data(data2)
-enc2 = codec.encode(data2, codebook=cb2, use_pallas=True, interpret=True)
+with mock.patch.object(backend, "encode_path",
+                       lambda: backend.INTERPRET):
+    enc2 = codec2.encode(data2, codebook=cb2)
 ref2_bytes, ref2_bits = golden.encode(data2, cb2)
 assert enc2.total_bits == ref2_bits, (enc2.total_bits, ref2_bits)
-assert np.array_equal(enc2.stream_words, packed_bytes_to_words(ref2_bytes)), \
-    "2-process product Mosaic stream not bit-exact vs golden"
+assert np.array_equal(enc2.stream_bytes, ref2_bytes), \
+    "2-process kernel stream not bit-exact vs golden"
+assert container.dumps(enc2) == container.dumps(
+    api.encode(data2, codebook=cb2)), \
+    "2-process container differs from the single-device one"
 
-# ---- product wide path: tile-parallel encode + payload-sharded decode
-# across the process boundary, roundtrip-exact and container-identical to
-# the single-chip wide encoder.
-from huffman_tpu import wide as wide_mod  # noqa: E402
-from huffman_tpu import container  # noqa: E402
-
-data3 = testdata.skewed(ndev * wide_mod.TILE_BYTES, num_symbols=32, seed=9)
-cb3 = Codebook.from_data(data3, 12)
-enc3 = codec.encode_wide(data3, codebook=cb3, interpret=True)
-out3 = codec.decode_wide(enc3, interpret=True)
-assert np.array_equal(out3, data3), "2-process wide roundtrip mismatch"
-ref3 = wide_mod.encode_wide(data3, CodecConfig(), codebook=cb3,
-                            interpret=True)
-assert container.dumps_wide(enc3) == container.dumps_wide(ref3), \
-    "2-process wide container differs from single-chip"
 print("MULTIHOST-OK", flush=True)

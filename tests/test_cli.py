@@ -3,7 +3,7 @@ everything reachable from argv).
 
 Runs cli.main() in-process on the 8-device virtual CPU mesh from
 conftest.  Covers the --mesh flag (ShardedCodec reachable from argv,
-round-trips bit-exactly vs golden), the auto format resolution, and the
+round-trips bit-exactly vs golden), legacy version-3 containers, and the
 encode/decode/roundtrip/info surfaces.
 """
 
@@ -26,7 +26,6 @@ def test_encode_decode_default(sample_file, tmp_path):
     path, data = sample_file
     out = str(tmp_path / "a.htz")
     dec = str(tmp_path / "a.out")
-    # auto resolves to dense on the CPU backend
     assert cli.main(["encode", path, "-o", out, "--verify"]) == 0
     assert cli.main(["decode", out, "-o", dec]) == 0
     assert open(dec, "rb").read() == data.tobytes()
@@ -61,21 +60,12 @@ def test_roundtrip_cmd(sample_file):
     assert cli.main(["roundtrip", path]) == 0
 
 
-def test_resolve_format(monkeypatch):
-    assert cli._resolve_format("dense", False, None) == "dense"
-    assert cli._resolve_format("wide", True, None) == "wide"
-    # auto: dense for verify / mesh runs regardless of platform
-    assert cli._resolve_format("auto", True, None) == "dense"
-    assert cli._resolve_format("auto", False, "2") == "dense"
-
-    class FakeDev:
-        platform = "tpu"
-    import jax
-    monkeypatch.setattr(jax, "devices", lambda: [FakeDev()])
-    assert cli._resolve_format("auto", False, None) == "wide"
-    monkeypatch.setattr(jax, "devices", lambda: (_ for _ in ()).throw(
-        RuntimeError("no backend")))
-    assert cli._resolve_format("auto", False, None) == "dense"
+def test_format_option_removed(sample_file, tmp_path):
+    """Only the dense container is written; --format is gone."""
+    path, _ = sample_file
+    with pytest.raises(SystemExit):
+        cli.main(["encode", path, "-o", str(tmp_path / "x.htz"),
+                  "--format", "wide"])
 
 
 def test_decode_range(tmp_path):
@@ -86,8 +76,7 @@ def test_decode_range(tmp_path):
     src.write_bytes(data.tobytes())
     htz = str(tmp_path / "r.htz")
     out = tmp_path / "r.part"
-    assert cli.main(["encode", str(src), "-o", htz,
-                     "--format", "dense"]) == 0
+    assert cli.main(["encode", str(src), "-o", htz]) == 0
     assert cli.main(["decode", htz, "-o", str(out),
                      "--range", "1000:3500"]) == 0
     assert out.read_bytes() == data[1000:3500].tobytes()
@@ -109,17 +98,20 @@ def test_decode_range_degenerate():
                                   data[4999:5000])
 
 
-def test_decode_range_wide_api():
-    """wide.decode_wide_range decodes only the covering tiles."""
-    from huffman_tpu import wide
-    from huffman_tpu.codebook import Codebook
-    from huffman_tpu.config import CodecConfig
+@pytest.mark.parametrize("rng_arg", [None, "1000:270000"])
+def test_decode_legacy_v3(tmp_path, rng_arg):
+    """A version-3 container from an earlier release decodes (and
+    --range slices) through the host spec decoder."""
     from huffman_tpu.utils import testdata
-    data = testdata.skewed(600_000, num_symbols=32, seed=45)  # 3 tiles
-    cb = Codebook.from_data(data, 12)
-    enc = wide.encode_wide(data, CodecConfig(), codebook=cb,
-                           interpret=True)
-    for a, b in ((0, 100), (300_000, 300_001), (262_100, 530_000),
-                 (599_990, 600_000)):
-        np.testing.assert_array_equal(
-            wide.decode_wide_range(enc, a, b, interpret=True), data[a:b])
+    from wide_v3 import dumps_v3, encode_v3
+    data = testdata.skewed(300_000, num_symbols=32, seed=45)   # 2 tiles
+    htz = tmp_path / "old.htz"
+    htz.write_bytes(dumps_v3(encode_v3(data)))
+    out = tmp_path / "old.out"
+    argv = ["decode", str(htz), "-o", str(out)]
+    if rng_arg:
+        argv += ["--range", rng_arg]
+    assert cli.main(argv) == 0
+    a, b = (0, data.size) if rng_arg is None else (1000, 270000)
+    assert out.read_bytes() == data[a:b].tobytes()
+    assert cli.main(["info", str(htz)]) == 0

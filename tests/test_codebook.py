@@ -152,62 +152,3 @@ class TestEntropy:
     def test_uniform_entropy(self):
         freqs = np.full(256, 1000, dtype=np.int64)
         assert abs(entropy_bits_per_byte(freqs) - 8.0) < 1e-12
-
-
-class TestAutoNarrow:
-    """Codebook.from_frequencies_auto: the narrow_tol speed/size policy."""
-
-    def test_tolerance_gates_the_narrow_book(self):
-        # Geometric-ish 18-symbol stream: cap-8 costs ~2.9% expected size,
-        # so it is refused at 1% tolerance and chosen at 5%.
-        rng = np.random.default_rng(0)
-        raw = rng.integers(1, 1 << 30, size=1 << 16, dtype=np.int64)
-        data = (np.log2(raw).astype(np.int32) % 32).astype(np.uint8)
-        freqs = byte_histogram_host(data)
-        full = Codebook.from_frequencies(freqs, 12)
-        tight = Codebook.from_frequencies_auto(freqs, 12, narrow_tol=0.01)
-        assert tight.max_len == full.max_len
-        loose = Codebook.from_frequencies_auto(freqs, 12, narrow_tol=0.05)
-        assert loose.max_len <= 8 < full.max_len
-        assert (loose.expected_bits_per_byte(freqs)
-                <= full.expected_bits_per_byte(freqs) * 1.05)
-
-    def test_naturally_narrow_book_passes_through(self):
-        # Uniform 16-symbol source: the unrestricted book is already
-        # 4 bits/code — auto must return it unchanged (the kernel picks
-        # the narrow tree from the actual max length).
-        freqs = np.zeros(256, np.int64)
-        freqs[:16] = 1000
-        auto = Codebook.from_frequencies_auto(freqs, 12, narrow_tol=0.01)
-        assert auto.max_len == 4
-        assert auto.expected_bits_per_byte(freqs) == 4.0
-
-    def test_uniform_alphabet_keeps_full_cap(self):
-        # 256 live symbols cannot fit 8-bit codes any tighter than 8 bits;
-        # a dense skewed alphabet must refuse the narrow book.
-        rng = np.random.default_rng(1)
-        data = rng.zipf(1.3, size=1 << 16).astype(np.uint8)
-        freqs = byte_histogram_host(data) + 1      # all 256 live
-        auto = Codebook.from_frequencies_auto(freqs, 12, narrow_tol=0.01)
-        full = Codebook.from_frequencies(freqs, 12)
-        assert auto.max_len == full.max_len
-
-    def test_tol_zero_disables(self):
-        rng = np.random.default_rng(2)
-        raw = rng.integers(1, 1 << 30, size=1 << 14, dtype=np.int64)
-        data = (np.log2(raw).astype(np.int32) % 32).astype(np.uint8)
-        freqs = byte_histogram_host(data)
-        auto = Codebook.from_frequencies_auto(freqs, 12, narrow_tol=0.0)
-        full = Codebook.from_frequencies(freqs, 12)
-        assert np.array_equal(auto.lengths, full.lengths)
-
-    def test_roundtrip_with_auto_book(self):
-        from huffman_tpu import golden
-        rng = np.random.default_rng(3)
-        raw = rng.integers(1, 1 << 30, size=1 << 14, dtype=np.int64)
-        data = (np.log2(raw).astype(np.int32) % 32).astype(np.uint8)
-        cb = Codebook.from_frequencies_auto(byte_histogram_host(data), 12)
-        stream, bits = golden.encode(data, cb)
-        assert np.array_equal(
-            np.frombuffer(bytes(golden.decode(stream, len(data), cb)),
-                          dtype=np.uint8), data)

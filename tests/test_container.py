@@ -61,13 +61,9 @@ class TestContainer:
 
     def test_wide_truncation_fuzz(self):
         import struct
-        from huffman_tpu import wide
-        from huffman_tpu.codebook import Codebook as CB
+        from wide_v3 import dumps_v3, encode_v3
         data = testdata.skewed(5000, num_symbols=16, seed=15)
-        cb = CB.from_data(data, 12)
-        enc = wide.encode_wide(data, CodecConfig(), codebook=cb,
-                               interpret=True)
-        blob = container.dumps_wide(enc)
+        blob = dumps_v3(encode_v3(data))
         for cut in (0, 7, 32, len(blob) // 2, len(blob) - 1):
             with pytest.raises((ValueError, struct.error)):
                 container.loads_wide(blob[:cut])
@@ -84,18 +80,15 @@ class TestContainer:
             container.loads(bytes(blob))
 
     def test_payload_crc_wide(self):
-        from huffman_tpu import wide
-        from huffman_tpu.codebook import Codebook as CB
+        from wide_v3 import dumps_v3, encode_v3
         data = testdata.skewed(5000, num_symbols=16, seed=17)
-        cb = CB.from_data(data, 12)
-        enc = wide.encode_wide(data, CodecConfig(), codebook=cb,
-                               interpret=True)
-        blob = bytearray(container.dumps_wide(enc))
+        enc = encode_v3(data)
+        blob = bytearray(dumps_v3(enc))
         blob[-6] ^= 0x01          # inside the payload, before the CRC
         with pytest.raises(ValueError, match="CRC"):
             container.loads_wide(bytes(blob))
         # and the untampered blob still loads
-        container.loads_wide(bytes(container.dumps_wide(enc)))
+        container.loads_wide(bytes(dumps_v3(enc)))
 
     def test_crcless_container_still_loads(self):
         """Pre-r5 containers (flags=0, no trailing CRC) remain readable."""
@@ -123,6 +116,41 @@ class TestContainer:
         payload = blob[container.overhead_bytes(len(enc.block_bits)):]
         sbytes = enc.stream_bytes
         assert payload[: len(sbytes)] == sbytes.tobytes()
+
+
+class TestLegacyWide:
+    """Version-3 containers written by earlier releases stay readable:
+    loaded by container.load, decoded on the host by the spec decoder."""
+
+    @pytest.mark.parametrize("n,nsym,mcl", [
+        (1, 4, 12), (5000, 16, 12), (262_144, 32, 12),   # one full tile
+        (300_000, 64, 12),                               # two tiles
+        (70_000, 200, 10), (9_000, 3, 4)])
+    def test_load_and_decode(self, tmp_path, n, nsym, mcl):
+        from wide_v3 import dumps_v3, encode_v3
+        data = testdata.skewed(n, num_symbols=nsym, seed=n)
+        p = tmp_path / "legacy.htz"
+        p.write_bytes(dumps_v3(encode_v3(data, mcl)))
+        enc = container.load(str(p))
+        assert isinstance(enc, container.WideEncoded)
+        assert enc.n_bytes == n
+        np.testing.assert_array_equal(container.decode_wide(enc), data)
+
+    def test_crcless_v3_loads(self):
+        from wide_v3 import dumps_v3, encode_v3
+        data = testdata.skewed(3000, num_symbols=16, seed=19)
+        enc = container.loads_wide(dumps_v3(encode_v3(data),
+                                            checksum=False))
+        np.testing.assert_array_equal(container.decode_wide(enc), data)
+
+    def test_rejects_foreign_tile_size(self):
+        import struct
+        from wide_v3 import dumps_v3, encode_v3
+        blob = bytearray(dumps_v3(encode_v3(
+            testdata.skewed(100, num_symbols=4, seed=1))))
+        struct.pack_into("<I", blob, 20, 1024)       # block_bytes field
+        with pytest.raises(ValueError, match="tile size"):
+            container.loads_wide(bytes(blob))
 
 
 class TestVerify:

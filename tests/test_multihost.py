@@ -1,9 +1,9 @@
 """Multi-host distributed test without a cluster (SURVEY.md section 4).
 
 Spawns two jax.distributed processes (2 virtual CPU devices each) that
-form one 4-device global mesh and run the sharded encode phases with
-cross-process collectives — the exact code path of a multi-host TPU pod
-slice (parallel/mesh.init_multihost), verified bit-exact vs golden.
+form one 4-device global mesh and run ShardedCodec with cross-process
+collectives — the code path of a multi-host cluster
+(parallel/mesh.init_multihost), verified bit-exact vs golden.
 """
 
 import os

@@ -183,23 +183,81 @@ class TestDecode:
         gd = golden.decode(enc.stream_bytes, enc.n_bytes, enc.codebook)
         np.testing.assert_array_equal(api.decode(enc), gd)
 
+    @pytest.mark.parametrize("block_bytes,mcl", [(64, 12), (1000, 8),
+                                                 (4096, 16)])
+    def test_xla_decode_matches_golden_decode(self, block_bytes, mcl):
+        """The XLA reader against golden.decode of the same stream."""
+        data = testdata.skewed(33_333, num_symbols=100, decay=0.9, seed=22)
+        cfg = CodecConfig(block_bytes=block_bytes, max_code_len=mcl,
+                          capacity_bits_per_byte=16)
+        enc = api.encode(data, cfg)
+        gd = golden.decode(enc.stream_bytes, enc.n_bytes, enc.codebook)
+        np.testing.assert_array_equal(gd, data)
+        np.testing.assert_array_equal(api.decode(enc), gd)
+
+    @pytest.mark.parametrize("start,stop", [
+        (0, 1), (1023, 1025), (5000, 5000), (4096, 20_000), (19_999, 20_000)])
+    def test_decode_range_matches_golden(self, start, stop):
+        """decode_range == golden.decode started at the covering block's
+        bit offset (the container's per-block counts)."""
+        data = testdata.skewed(20_000, num_symbols=40, seed=23)
+        enc = api.encode(data)
+        b0 = start // 1024
+        bit0 = int(np.asarray(enc.block_bits[:b0], np.int64).sum())
+        gd = golden.decode(enc.stream_bytes, stop - b0 * 1024, enc.codebook,
+                           bit_offset=bit0)
+        np.testing.assert_array_equal(api.decode_range(enc, start, stop),
+                                      gd[start - b0 * 1024:])
+
+
+class TestBlockOffsets:
+    @pytest.mark.parametrize("nb,maxbits", [(1, 0), (1000, 8192),
+                                            (70_000, 4000)])
+    def test_host_scan_matches_device_scan(self, nb, maxbits):
+        rng = np.random.default_rng(nb)
+        bits = rng.integers(0, maxbits + 1, nb).astype(np.int32)
+        wb, sh = api.block_offsets(bits)
+        off = exclusive_bit_offsets(jnp.asarray(bits))
+        np.testing.assert_array_equal(wb, np.asarray(off.word_base))
+        np.testing.assert_array_equal(sh, np.asarray(off.bit_shift))
+
+
+def _hist(data, block_bytes=1024, n_valid=None):
+    cfg = CodecConfig(block_bytes=block_bytes)
+    blocks, n = api._as_blocks(data, cfg)
+    valid = api.valid_per_block(n if n_valid is None else n_valid,
+                                blocks.shape[0], block_bytes)
+    return np.asarray(hist_ops.histogram(jnp.asarray(blocks),
+                                         jnp.asarray(valid)))
+
 
 class TestHistogram:
-    @pytest.mark.parametrize("impl", [hist_ops.histogram_xla,
-                                      hist_ops.histogram_onehot])
-    def test_matches_host(self, impl):
+    @pytest.mark.parametrize("block_bytes", [64, 1000, 1024])
+    def test_matches_host(self, block_bytes):
         data = testdata.uniform_random(100_000, seed=6)
-        h = np.asarray(impl(jnp.asarray(data)))
-        np.testing.assert_array_equal(h, np.bincount(data, minlength=256))
+        np.testing.assert_array_equal(_hist(data, block_bytes),
+                                      golden.histogram(data))
 
-    @pytest.mark.parametrize("impl", [hist_ops.histogram_xla,
-                                      hist_ops.histogram_onehot])
-    def test_respects_n_valid(self, impl):
+    @pytest.mark.parametrize("n_valid", [0, 1, 7777])
+    def test_respects_n_valid(self, n_valid):
         data = testdata.uniform_random(10_000, seed=8)
-        h = np.asarray(impl(jnp.asarray(data), n_valid=7777))
-        np.testing.assert_array_equal(h, np.bincount(data[:7777], minlength=256))
-        assert h.sum() == 7777
+        h = _hist(data, n_valid=n_valid)
+        np.testing.assert_array_equal(
+            h, np.bincount(data[:n_valid], minlength=256))
+        assert h.sum() == n_valid
+
+    def test_per_block_valid_counts(self):
+        """Zero counts leave whole blocks out (sampling, mesh padding)."""
+        data = testdata.uniform_random(8 * 256, seed=9)
+        blocks = data.reshape(8, 256)
+        valid = np.array([256, 0, 256, 0, 100, 0, 0, 256], np.int32)
+        h = np.asarray(hist_ops.histogram(jnp.asarray(blocks),
+                                          jnp.asarray(valid)))
+        want = sum(np.bincount(blocks[i, :v], minlength=256)
+                   for i, v in enumerate(valid))
+        np.testing.assert_array_equal(h, want)
 
     def test_empty_counts(self):
-        h = np.asarray(hist_ops.histogram_onehot(jnp.zeros(0, jnp.uint8)))
-        assert h.sum() == 0
+        h = np.asarray(hist_ops.histogram(jnp.zeros((0, 1024), jnp.uint8),
+                                          jnp.zeros(0, jnp.int32)))
+        assert h.shape == (256,) and h.sum() == 0

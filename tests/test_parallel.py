@@ -1,16 +1,16 @@
-"""Multi-chip data-parallel pipeline tests on the virtual 8-device CPU mesh.
+"""Multi-device data-parallel pipeline tests on the virtual 8-device CPU mesh.
 
-SURVEY.md section 4's prescription: multi-host logic tested without a
-cluster — the same mesh/shard_map code that runs on a pod slice runs here
+SURVEY.md section 4's prescription: multi-device logic tested without a
+cluster — the same mesh/shard_map code that runs on the cards runs here
 over 8 virtual CPU devices.  Key property: sharded output is bit-identical
-to the single-chip pipeline and the golden codec, for every mesh size.
+to the single-device pipeline and the golden codec, for every mesh size.
 """
 
 import jax
 import numpy as np
 import pytest
 
-from huffman_tpu import api, golden, verify
+from huffman_tpu import api, container, golden, verify
 from huffman_tpu.codebook import Codebook
 from huffman_tpu.config import CodecConfig
 from huffman_tpu.parallel.mesh import make_mesh
@@ -30,8 +30,25 @@ class TestShardedHistogram:
         data = testdata.uniform_random(100_000, seed=1)
         blocks, valid, n = codec.prepare(data)
         d_blocks, d_valid = codec.shard_inputs(blocks, valid)
-        h = np.asarray(histogram_sharded(mesh8)(d_blocks, d_valid))
-        np.testing.assert_array_equal(h, np.bincount(data, minlength=256))
+        rows = np.asarray(histogram_sharded(mesh8)(d_blocks, d_valid))
+        assert rows.shape == (8, 256)
+        np.testing.assert_array_equal(rows.sum(axis=0),
+                                      np.bincount(data, minlength=256))
+        np.testing.assert_array_equal(codec.histogram(d_blocks, valid),
+                                      np.bincount(data, minlength=256))
+
+    def test_sampled_codebook_matches_single_device(self, mesh8,
+                                                    monkeypatch):
+        """Above SAMPLE_MIN_BYTES both paths histogram the same global
+        every-k-th blocks, so they build the same codebook."""
+        monkeypatch.setattr(api, "SAMPLE_MIN_BYTES", 8 * 1024)
+        monkeypatch.setattr(api, "SAMPLE_EVERY", 4)
+        data = testdata.skewed(77 * 1024 + 5, num_symbols=48, seed=2)
+        enc1 = api.encode(data)
+        enc8 = ShardedCodec(mesh8).encode(data)
+        np.testing.assert_array_equal(enc1.codebook.lengths,
+                                      enc8.codebook.lengths)
+        assert container.dumps(enc1) == container.dumps(enc8)
 
 
 class TestShardedEncode:
@@ -55,8 +72,7 @@ class TestShardedEncode:
         enc8 = ShardedCodec(mesh8).encode(data, codebook=cb)
         assert enc1.total_bits == enc8.total_bits
         np.testing.assert_array_equal(enc1.stream_words, enc8.stream_words)
-        np.testing.assert_array_equal(enc1.block_bits,
-                                      enc8.block_bits[: len(enc1.block_bits)])
+        np.testing.assert_array_equal(enc1.block_bits, enc8.block_bits)
 
     def test_uneven_tail(self, mesh8):
         # Input not divisible by block size nor by mesh size.
@@ -70,50 +86,31 @@ class TestShardedEncode:
         assert verify.verify_encoded(enc, data)
 
 
-class TestShardedSpeculative:
-    """The Mosaic path's speculative schedule under shard_map.
+class TestShardedKernel:
+    """The GPU kernel (Pallas interpreter) inside shard_map: each shard
+    encodes into its own buffer at host-scanned local offsets, and the
+    assembled stream is bit-exact against golden and the single-device
+    container."""
 
-    Runs the REAL kernels (Pallas interpreter) on the CPU mesh with the
-    speculative tree forced on, over data engineered so some blocks MUST
-    be flagged and re-encoded through the sharded overlay patch —
-    bit-exactness proves phase1's masked scan base, the flag plumbing,
-    and _patch_flagged_sharded all compose.
-    """
-
-    def test_spec_patch_bit_exact(self, mesh8):
-        from unittest import mock
-        from huffman_tpu import api as api_mod
-        from huffman_tpu.golden.numpy_codec import packed_bytes_to_words
-        rng = np.random.default_rng(11)
-        data = testdata.skewed(32 * 1024, num_symbols=16, seed=10)
-        # runs of rare symbols: their ~12-bit codes make 8-byte windows
-        # far exceed 32 bits, guaranteeing spec-tree violations
-        for b in (3, 17, 30):
-            data[b * 1024 + 100: b * 1024 + 164] = \
-                rng.integers(200, 256, size=64)
-        cb = Codebook.from_data(data, 12)
-        assert int(cb.lengths.max()) > 8      # long codes present
-        with mock.patch.object(api_mod, "_spec_halve_to",
-                               lambda *a, **k: 1):
-            enc = ShardedCodec(mesh8).encode(data, codebook=cb,
-                                             use_pallas=True,
-                                             interpret=True)
+    @pytest.mark.parametrize("ndev", [2, 8])
+    @pytest.mark.parametrize("n", [48 * 1024, 48 * 1024 + 333])
+    def test_bit_exact_vs_golden(self, kernel_interpret, ndev, n):
+        data = testdata.skewed(n, num_symbols=32, seed=21 + ndev)
+        cb = Codebook.from_data(data)
+        enc = ShardedCodec(make_mesh(ndev)).encode(data, codebook=cb)
         ref_bytes, ref_bits = golden.encode(data, cb)
         assert enc.total_bits == ref_bits
+        from huffman_tpu.golden.numpy_codec import packed_bytes_to_words
         np.testing.assert_array_equal(enc.stream_words,
                                       packed_bytes_to_words(ref_bytes))
+        assert container.dumps(enc) == container.dumps(
+            api.encode(data, codebook=cb))
 
-    def test_matches_single_chip_pallas(self, mesh8):
-        # unmocked product schedule, Mosaic kernels on both sides
-        data = testdata.skewed(48 * 1024, num_symbols=32, seed=21)
-        cb = Codebook.from_data(data)
-        enc8 = ShardedCodec(mesh8).encode(data, codebook=cb,
-                                          use_pallas=True, interpret=True)
-        ref_bytes, ref_bits = golden.encode(data, cb)
-        assert enc8.total_bits == ref_bits
-        from huffman_tpu.golden.numpy_codec import packed_bytes_to_words
-        np.testing.assert_array_equal(enc8.stream_words,
-                                      packed_bytes_to_words(ref_bytes))
+    def test_empty_shards(self, kernel_interpret, mesh8):
+        # 3 blocks on 8 devices: five shards encode nothing
+        data = testdata.skewed(2 * 1024 + 100, num_symbols=8, seed=5)
+        enc = ShardedCodec(mesh8).encode(data)
+        assert verify.verify_encoded(enc, data)
 
 
 class TestShardedDecode:
@@ -138,69 +135,27 @@ class TestShardedDecode:
         np.testing.assert_array_equal(codec.decode(enc), data)
 
 
-class TestShardedWide:
-    """Sharded wide-format codec (tile-parallel shard_map, Mosaic kernels
-    under the Pallas interpreter on the CPU mesh).
-
-    Key property, same as the dense path: the sharded container is
-    byte-identical to the single-chip wide.encode_wide container.
-    """
-
-    def test_matches_single_chip(self):
-        mesh = make_mesh(2)
-        data = testdata.skewed(300_000, num_symbols=32, seed=31)  # 2 tiles
-        cb = Codebook.from_data(data, 12)
-        from huffman_tpu import wide
-        enc1 = wide.encode_wide(data, CodecConfig(), codebook=cb,
-                                interpret=True)
-        enc2 = ShardedCodec(mesh).encode_wide(data, codebook=cb,
-                                              interpret=True)
-        np.testing.assert_array_equal(enc1.payload_words, enc2.payload_words)
-        np.testing.assert_array_equal(enc1.tile_words, enc2.tile_words)
-        np.testing.assert_array_equal(enc1.bases, enc2.bases)
-
-    def test_roundtrip(self):
-        mesh = make_mesh(2)
-        codec = ShardedCodec(mesh)
-        data = testdata.skewed(300_000, num_symbols=64, seed=32)
-        enc = codec.encode_wide(data, interpret=True)
-        np.testing.assert_array_equal(codec.decode_wide(enc, interpret=True),
-                                      data)
-
-    def test_decode_pads_tiles_to_mesh(self, mesh8):
-        # 1-tile container decoded on an 8-device mesh: 7 pad tiles
-        # schedule zero pulls and their output rows are dropped.
-        from huffman_tpu import wide
-        data = testdata.skewed(5_000, num_symbols=16, seed=33)
-        enc = wide.encode_wide(data, CodecConfig(), interpret=True)
-        out = ShardedCodec(mesh8).decode_wide(enc, interpret=True)
-        np.testing.assert_array_equal(out, data)
-
-
 class TestShardedMissingSymbol:
     """ShardedCodec.encode shares api.encode's missing-symbol contract
     (round-4: it previously skipped the check entirely)."""
 
-    def test_pallas_path_raises(self, mesh8):
+    def test_pallas_path_raises(self, kernel_interpret, mesh8):
         cb = testdata.dummy_codebook(4)
         data = testdata.skewed(40_000, num_symbols=4, seed=12)
         data[17_000] = 200
         with pytest.raises(ValueError, match="absent from the codebook"):
-            ShardedCodec(mesh8).encode(data, codebook=cb,
-                                       use_pallas=True, interpret=True)
+            ShardedCodec(mesh8).encode(data, codebook=cb)
 
     def test_xla_path_raises(self, mesh8):
         cb = testdata.dummy_codebook(4)
         data = testdata.skewed(40_000, num_symbols=4, seed=12)
         data[17_000] = 200
         with pytest.raises(ValueError, match="absent from the codebook"):
-            ShardedCodec(mesh8).encode(data, codebook=cb,
-                                       use_pallas=False)
+            ShardedCodec(mesh8).encode(data, codebook=cb)
 
-    def test_clean_input_passes(self, mesh8):
+    def test_clean_input_passes(self, kernel_interpret, mesh8):
         cb = testdata.dummy_codebook(4)
         data = testdata.skewed(40_000, num_symbols=4, seed=12)
-        enc = ShardedCodec(mesh8).encode(data, codebook=cb,
-                                         use_pallas=True, interpret=True)
+        enc = ShardedCodec(mesh8).encode(data, codebook=cb)
         ref_bytes, ref_bits = golden.encode(data, cb)
         assert enc.total_bits == ref_bits

@@ -1,10 +1,9 @@
-"""Sampled codebook build + exact in-kernel miss detection.
+"""Sampled codebook build + exact missing-symbol detection.
 
-Above api.SAMPLE_MIN_BYTES the product path histograms every
-SAMPLE_EVERY-th block only and encodes with detect_missing: a valid byte
-without a code flags bit 31 of the bits output and api.encode rebuilds
-from the full histogram (speculate-and-patch, like the capacity/tree
-speculation).
+Above api.SAMPLE_MIN_BYTES api.encode histograms every SAMPLE_EVERY-th
+block only; the block bit-count pass flags every block holding a valid
+byte without a code, and api.encode then rebuilds from the full
+histogram (speculate-and-check).
 """
 
 import numpy as np
@@ -15,14 +14,21 @@ from huffman_tpu import api, golden
 from huffman_tpu.codebook import Codebook
 from huffman_tpu.config import CodecConfig
 from huffman_tpu.golden.numpy_codec import packed_bytes_to_words
-from huffman_tpu.ops.pallas.encode import BITS_MASK, encode_blocks_pallas
-
-from test_spec_cap import mosaic_on_cpu as _fixture_impl
+from huffman_tpu.ops.pallas.encode_pack import block_bits
 
 
 @pytest.fixture
-def mosaic_on_cpu(monkeypatch):
-    return _fixture_impl.__wrapped__(monkeypatch)
+def kernel_calls(kernel_interpret, monkeypatch):
+    """The kernel path (interpreter) with its block_bits passes counted."""
+    calls = {"encode": []}
+    real = api._block_bits
+
+    def counted(*a):
+        calls["encode"].append(a[0].shape[0])
+        return real(*a)
+
+    monkeypatch.setattr(api, "_block_bits", counted)
+    return calls
 
 
 @pytest.fixture
@@ -57,8 +63,8 @@ def test_build_codebook_sampled(rng):
 
 
 def test_kernel_detect_missing_exact():
-    """Bit 31 flags exactly the blocks containing an uncoded valid byte;
-    padding bytes never flag."""
+    """The missing flag marks exactly the blocks containing an uncoded
+    valid byte; padding bytes never flag."""
     rng = np.random.default_rng(5)
     data = rng.integers(0, 16, size=8 * 1024 + 100).astype(np.uint8)
     data[3 * 1024 + 7] = 200          # uncoded symbol in block 3 only
@@ -68,26 +74,23 @@ def test_kernel_detect_missing_exact():
     cfg = CodecConfig()
     blocks, n = api._as_blocks(data, cfg)
     valid = api.valid_per_block(n, blocks.shape[0], cfg.block_bytes)
-    _, bits = encode_blocks_pallas(
-        jnp.asarray(blocks), jnp.asarray(cb.codes), jnp.asarray(cb.lengths),
-        jnp.asarray(valid), 256, interpret=True, detect_missing=True)
-    bits_raw = np.asarray(bits)
-    flags = (bits_raw >> 31) & 1
-    want = np.zeros(blocks.shape[0], np.int32)
-    want[3] = 1
-    assert np.array_equal(flags, want)
+    _, missing = block_bits(jnp.asarray(blocks), jnp.asarray(cb.lengths),
+                            jnp.asarray(valid))
+    want = np.zeros(blocks.shape[0], bool)
+    want[3] = True
+    assert np.array_equal(np.asarray(missing), want)
 
 
-def test_api_sampled_holds(mosaic_on_cpu, small_sampling, rng):
+def test_api_sampled_holds(kernel_calls, small_sampling, rng):
     """Stationary stream: the sampled codebook covers every symbol, one
     encode pass, bit-exact."""
-    data = (rng.geometric(0.4, size=48 * 1024 + 37) % 32).astype(np.uint8)
+    data = (rng.geometric(0.4, size=48 * 1024 + 37) % 8).astype(np.uint8)
     enc = api.encode(data, CodecConfig())
-    assert len(mosaic_on_cpu["encode"]) <= 2   # no full-rebuild extra pass
+    assert len(kernel_calls["encode"]) == 1   # no full-rebuild extra pass
     _check_vs_golden(data, enc)
 
 
-def test_api_sampled_miss_rebuilds(mosaic_on_cpu, small_sampling):
+def test_api_sampled_miss_rebuilds(kernel_calls, small_sampling):
     """A symbol appearing ONLY outside the sampled blocks triggers the
     exact rebuild; output is bit-exact under the exact codebook."""
     rng = np.random.default_rng(9)
@@ -98,5 +101,5 @@ def test_api_sampled_miss_rebuilds(mosaic_on_cpu, small_sampling):
     enc = api.encode(data, CodecConfig())
     assert enc.codebook.lengths[201] > 0 and enc.codebook.lengths[202] > 0
     # at least one extra encode pass happened (the rebuild redo)
-    assert len(mosaic_on_cpu["encode"]) >= 2
+    assert len(kernel_calls["encode"]) >= 2
     _check_vs_golden(data, enc)
